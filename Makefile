@@ -13,7 +13,7 @@ bench:
 	python bench.py
 
 native:
-	python -c "from ligero_tpu import native; assert native.available(), 'g++ build failed'; print('native kernels ok')"
+	python -c "from ligero_jax import native; assert native.available(), 'g++ build failed'; print('native kernels ok')"
 
 # One-shot golden capture against the Rust reference (needs a Rust
 # toolchain + network; see tools/capture_goldens/README.md).  REF

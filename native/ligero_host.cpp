@@ -1,6 +1,6 @@
-// Native host-side kernels for ligero_tpu.
+// Native host-side kernels for ligero_jax.
 //
-// The TPU owns the dense bulk math (NTT, hashing, combinations); the host
+// The device owns the dense bulk math (NTT, hashing, combinations); the host
 // owns irregular, pointer-chasing work the reference does in Rust:
 // witness evaluation over the circuit DAG and the sparse r^T·A products
 // (reference: src/arithmetic_circuit/mod.rs:247-271 evaluator,
@@ -9,11 +9,11 @@
 // limb-vector Montgomery arithmetic, generic over the u64 limb count
 // (4 = BN254, 6 = BLS12-377 Fq).
 //
-// Build: g++ -O3 -shared -fPIC (driven by ligero_tpu/native.py, loaded via
+// Build: g++ -O3 -shared -fPIC (driven by ligero_jax/native.py, loaded via
 // ctypes; the framework falls back to pure Python when unavailable).
 //
 // Representation: little-endian u64 limbs; "mont" = Montgomery form with
-// R = 2^(64*NL), matching ark-ff and ligero_tpu.fields.
+// R = 2^(64*NL), matching ark-ff and ligero_jax.fields.
 
 #include <cstdint>
 #include <cstring>
@@ -397,7 +397,7 @@ void lh_sparse_row_mul_sorted(int nl, const u64* p, u64 n0inv,
 // F::rand rejection sampling straight off the ChaCha20 stream: draw nl
 // u64s (LSB first), mask the top limb to MODULUS_BIT_SIZE, accept iff
 // lexicographically < p.  Accepted raw limbs ARE the Montgomery form
-// (ark semantics; see ligero_tpu/sampling.py).  out: count x nl u64.
+// (ark semantics; see ligero_jax/sampling.py).  out: count x nl u64.
 // out[j][.] = sum_i a[i][j] * b[i][j] * R^{-1} mod p  (the verifier's
 // <r_evals, column> spot products over every opened column at once;
 // reference src/ligero/mod.rs:820-828 per-column inner products).

@@ -52,7 +52,7 @@ def time_stage(field, mesh, four_m, k, n, stage, iters, pa, ra):
     import jax
     import jax.numpy as jnp
 
-    from ligero_tpu.parallel import make_sharded_prover_core
+    from ligero_jax.parallel import make_sharded_prover_core
 
     fn = make_sharded_prover_core(field, mesh, four_m, k, n, stage=stage)
     with mesh:
@@ -91,7 +91,7 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     from jax.sharding import Mesh
 
-    from ligero_tpu.fields import BN254_FR
+    from ligero_jax.fields import BN254_FR
 
     field = BN254_FR
     devices = jax.devices()

@@ -27,14 +27,14 @@ REFERENCE_CIRCOM = "/root/reference/circom"
 
 
 def _fixture_configs():
-    from ligero_tpu.circuit.r1cs import (
+    from ligero_jax.circuit.r1cs import (
         load_witness_json,
         parse_r1cs,
         repeated_squaring_constraint_system,
         repeated_squaring_witness,
     )
-    from ligero_tpu.circuit.witness import compute_witness
-    from ligero_tpu.fields import BN254_FR as F
+    from ligero_jax.circuit.witness import compute_witness
+    from ligero_jax.fields import BN254_FR as F
 
     def from_files(name, r1cs, witness_vals):
         cs = parse_r1cs(os.path.join(REFERENCE_CIRCOM, r1cs), F)
@@ -62,11 +62,11 @@ def _fixture_configs():
 
 
 def bench_fixture(name, cs, witness_vals, iters: int, use_jax: bool) -> dict:
-    from ligero_tpu.circuit import ArithmeticCircuit
-    from ligero_tpu.engine.backend import get_backend
-    from ligero_tpu.fields import BN254_FR as F
-    from ligero_tpu.ligero import LigeroCircuit
-    from ligero_tpu.sponge import test_sponge
+    from ligero_jax.circuit import ArithmeticCircuit
+    from ligero_jax.engine.backend import get_backend
+    from ligero_jax.fields import BN254_FR as F
+    from ligero_jax.ligero import LigeroCircuit
+    from ligero_jax.sponge import test_sponge
 
     circuit, outputs = ArithmeticCircuit.from_constraint_system(cs, F)
     var_assignment = [(i, v) for i, v in enumerate(witness_vals)][1:]
@@ -123,7 +123,7 @@ def main():
 
     import jax
 
-    from ligero_tpu.utils import jaxcache
+    from ligero_jax.utils import jaxcache
     jaxcache.enable()
     platform = jax.devices()[0].platform
     use_jax = not args.cpu

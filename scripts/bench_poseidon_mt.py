@@ -33,15 +33,15 @@ def main():
 
     import jax
 
-    from ligero_tpu.utils import jaxcache
+    from ligero_jax.utils import jaxcache
     jaxcache.enable()
-    from ligero_tpu.engine.backend import get_backend
-    from ligero_tpu.fields import BN254_FR
-    from ligero_tpu.ligero import LigeroCircuit
-    from ligero_tpu.ligero.types import LigeroMTPoseidonParams
-    from ligero_tpu.sponge import test_sponge
-    from ligero_tpu.synthetic import generate_random_circuit
-    from ligero_tpu.utils.profiling import phase_timer
+    from ligero_jax.engine.backend import get_backend
+    from ligero_jax.fields import BN254_FR
+    from ligero_jax.ligero import LigeroCircuit
+    from ligero_jax.ligero.types import LigeroMTPoseidonParams
+    from ligero_jax.sponge import test_sponge
+    from ligero_jax.synthetic import generate_random_circuit
+    from ligero_jax.utils.profiling import phase_timer
 
     F = BN254_FR
     platform = jax.devices()[0].platform

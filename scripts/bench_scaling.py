@@ -48,7 +48,7 @@ def time_core(field, mesh, four_m, k, n, iters):
     import jax
     import jax.numpy as jnp
 
-    from ligero_tpu.parallel import make_sharded_prover_core
+    from ligero_jax.parallel import make_sharded_prover_core
 
     fn = make_sharded_prover_core(field, mesh, four_m, k, n)
     with mesh:
@@ -82,8 +82,8 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     from jax.sharding import Mesh
 
-    from ligero_tpu.fields import BN254_FR
-    from ligero_tpu.utils import jaxcache
+    from ligero_jax.fields import BN254_FR
+    from ligero_jax.utils import jaxcache
     jaxcache.enable()
 
     field = BN254_FR

@@ -11,7 +11,7 @@ against the single-process host golden.
 Usage: multihost_worker.py <process_id> <num_processes> <port> <out_file>
 
 The reference has no distributed execution at all (SURVEY.md §2.3); this
-exercises ``ligero_tpu.parallel.multihost.initialize`` for real.
+exercises ``ligero_jax.parallel.multihost.initialize`` for real.
 """
 
 import hashlib
@@ -40,18 +40,18 @@ def main():
     os.environ["LIGERO_PROCESS_ID"] = str(process_id)
     os.environ["LIGERO_COORDINATOR"] = f"localhost:{port}"
 
-    from ligero_tpu.parallel.multihost import global_row_mesh, initialize
+    from ligero_jax.parallel.multihost import global_row_mesh, initialize
 
     initialize()
     assert jax.process_count() == num_processes, jax.process_count()
 
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from ligero_tpu.engine.backend import Backend
-    from ligero_tpu.fields import BN254_FR
-    from ligero_tpu.hashes import column_hash
-    from ligero_tpu.merkle import MerkleTree
-    from ligero_tpu.parallel import make_sharded_prover_core
+    from ligero_jax.engine.backend import Backend
+    from ligero_jax.fields import BN254_FR
+    from ligero_jax.hashes import column_hash
+    from ligero_jax.merkle import MerkleTree
+    from ligero_jax.parallel import make_sharded_prover_core
 
     F = BN254_FR
     mesh = global_row_mesh()
@@ -89,7 +89,7 @@ def main():
     u_canon_h = be.to_numpy(be.from_mont(evals))
     leaves_h = [column_hash(F, F.limbs_to_ints(u_canon_h[:, j, :]))
                 for j in range(n)]
-    from ligero_tpu.engine.hashops import be_words_to_bytes
+    from ligero_jax.engine.hashops import be_words_to_bytes
     assert be_words_to_bytes(root_np) == MerkleTree(leaves_h).root, \
         "distributed root != host golden"
     assert np.array_equal(lc_np, be.to_numpy(be.row_combine(r, preenc))), \
@@ -101,10 +101,10 @@ def main():
     # single-buffer budget: mesh-resident block-cyclic coefficients,
     # all_to_all streaming commit, ppermute quadratic realignment),
     # byte-compared against the in-process numpy proof
-    from ligero_tpu.ligero import LigeroCircuit
-    from ligero_tpu.parallel import ShardedBackend
-    from ligero_tpu.sponge import test_sponge
-    from ligero_tpu.synthetic import generate_random_circuit
+    from ligero_jax.ligero import LigeroCircuit
+    from ligero_jax.parallel import ShardedBackend
+    from ligero_jax.sponge import test_sponge
+    from ligero_jax.synthetic import generate_random_circuit
 
     Backend.MAX_DEVICE_BYTES = 4096
     c, outs, vars_ = generate_random_circuit(F, 300, num_vars=8, seed=9)

@@ -4,8 +4,8 @@ test generators (/root/reference/src/arithmetic_circuit/tests.rs:17-105 and
 
 import os
 
-from ligero_tpu.circuit import ArithmeticCircuit, Expression
-from ligero_tpu.fields import BLS12_377_FQ, BN254_FR
+from ligero_jax.circuit import ArithmeticCircuit, Expression
+from ligero_jax.fields import BLS12_377_FQ, BN254_FR
 
 REFERENCE_CIRCOM = os.environ.get("LIGERO_REFERENCE_CIRCOM",
                                   "/root/reference/circom")

@@ -1,6 +1,6 @@
 import numpy as np
 
-from ligero_tpu.chacha import ChaChaRng, ark_std_test_rng, chacha_blocks, u64_stream, word_stream
+from ligero_jax.chacha import ChaChaRng, ark_std_test_rng, chacha_blocks, u64_stream, word_stream
 
 # djb ChaCha20 keystream, zero key / zero counter / zero nonce (block 0).
 _ZERO_KEYSTREAM = bytes.fromhex(

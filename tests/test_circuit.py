@@ -14,9 +14,9 @@ from fixtures import (
     generate_lemniscate_circuit,
     generate_lemniscate_expression,
 )
-from ligero_tpu.circuit import ArithmeticCircuit, Expression, filter_constants
-from ligero_tpu.circuit.r1cs import load_witness_json, parse_r1cs
-from ligero_tpu.fields import BLS12_377_FQ, BN254_FR
+from ligero_jax.circuit import ArithmeticCircuit, Expression, filter_constants
+from ligero_jax.circuit.r1cs import load_witness_json, parse_r1cs
+from ligero_jax.fields import BLS12_377_FQ, BN254_FR
 
 F = BN254_FR
 needs_circom = pytest.mark.skipif(not os.path.isdir(REFERENCE_CIRCOM),
@@ -348,7 +348,7 @@ def test_poseidon_r1cs_full_witness():
 
 @needs_circom
 def test_wtns_matches_json():
-    from ligero_tpu.circuit.r1cs import load_witness_wtns
+    from ligero_jax.circuit.r1cs import load_witness_wtns
     json_w = load_witness_json(
         os.path.join(REFERENCE_CIRCOM, "poseidon/witness.json"), F)
     wtns_w = load_witness_wtns(

@@ -1,4 +1,4 @@
-"""CLI surface (`python -m ligero_tpu ...`): info / prove / verify.
+"""CLI surface (`python -m ligero_jax ...`): info / prove / verify.
 
 Feature-parity-plus: the reference is a library with no CLI (SURVEY.md
 §1); this drives the same pipeline its tests drive
@@ -9,7 +9,7 @@ import json
 
 import pytest
 
-from ligero_tpu.cli import main
+from ligero_jax.cli import main
 
 R1CS = "/root/reference/circom/multiplication.r1cs"
 WASM = "/root/reference/circom/multiplication.wasm"
@@ -83,11 +83,11 @@ def test_warmup_verb(tmp_path):
     afterwards verifies, and its bytes match a fresh instance's proof."""
     import json as _json
 
-    from ligero_tpu.circuit.arithmetic import ArithmeticCircuit
-    from ligero_tpu.circuit.r1cs import parse_r1cs
-    from ligero_tpu.fields import BN254_FR as F
-    from ligero_tpu.ligero import LigeroCircuit
-    from ligero_tpu.sponge import test_sponge
+    from ligero_jax.circuit.arithmetic import ArithmeticCircuit
+    from ligero_jax.circuit.r1cs import parse_r1cs
+    from ligero_jax.fields import BN254_FR as F
+    from ligero_jax.ligero import LigeroCircuit
+    from ligero_jax.sponge import test_sponge
 
     rc = main(["warmup", "--r1cs", R1CS, "--cpu"])
     assert rc == 0

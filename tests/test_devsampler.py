@@ -8,12 +8,12 @@ transcript (reference src/utils.rs:23-55, src/ligero/mod.rs:712-747).
 import numpy as np
 import pytest
 
-from ligero_tpu import native
-from ligero_tpu.chacha import chacha_blocks, key_words_from_seed
-from ligero_tpu.engine.backend import get_backend
-from ligero_tpu.engine.devsampler import chacha20_block_words, fr_sample_device
-from ligero_tpu.fields import BN254_FR
-from ligero_tpu.sampling import rand_field_elements_limbs
+from ligero_jax import native
+from ligero_jax.chacha import chacha_blocks, key_words_from_seed
+from ligero_jax.engine.backend import get_backend
+from ligero_jax.engine.devsampler import chacha20_block_words, fr_sample_device
+from ligero_jax.fields import BN254_FR
+from ligero_jax.sampling import rand_field_elements_limbs
 
 F = BN254_FR
 SEEDS = [bytes(range(32)), b"\xab" * 32, bytes([7] + [0] * 31)]
@@ -73,9 +73,9 @@ def test_sparse_rA_device_matches_native():
 def test_prove_uses_device_path_and_matches_numpy_proof():
     """End-to-end: jax backend (device expansion + device r^T A) produces
     the byte-identical proof to the numpy golden backend."""
-    from ligero_tpu.ligero import LigeroCircuit
-    from ligero_tpu.sponge import test_sponge
-    from ligero_tpu.synthetic import generate_random_circuit
+    from ligero_jax.ligero import LigeroCircuit
+    from ligero_jax.sponge import test_sponge
+    from ligero_jax.synthetic import generate_random_circuit
 
     c, outputs, vars_ = generate_random_circuit(F, 600, num_vars=16, seed=11)
     lj = LigeroCircuit(c, outputs, backend=get_backend(F, use_jax=True))
@@ -93,7 +93,7 @@ def test_fr_sample_device_wordmajor_matches_rowmajor(count):
     """The word-major 2^22-scale sampler (limb-major uint16 output,
     layouts chosen to avoid the (attempts, 8) lane-padding OOM) draws
     the identical stream: values equal the row-major sampler's."""
-    from ligero_tpu.engine.devsampler import fr_sample_device_wordmajor
+    from ligero_jax.engine.devsampler import fr_sample_device_wordmajor
     for seed in SEEDS:
         key = key_words_from_seed(seed).astype(np.uint32)
         want, _ = fr_sample_device(np, F, key, count)
@@ -110,7 +110,7 @@ def test_rand_field_mont_narrow_jax_cpu():
     assert got is not None and got.shape == (F.num_limbs, 4096)
     assert np.array_equal(want, np.asarray(got).T)
     # unsupported limb width -> None (host fallback)
-    from ligero_tpu.fields import BLS12_377_FQ
+    from ligero_jax.fields import BLS12_377_FQ
     be_bls = get_backend(BLS12_377_FQ, use_jax=True)
     assert be_bls.rand_field_mont(64, SEEDS[1], narrow=True) is None
 
@@ -154,10 +154,10 @@ def test_r_a_coeff_rows_blocked_path_matches_host():
     """Force the blocked device path in _r_a_coeff_rows (shrunken device
     budget) and bit-compare the resulting coefficient rows against the
     unconstrained device path and the numpy host path."""
-    from ligero_tpu.engine.backend import Backend
-    from ligero_tpu.engine.devmatrix import RowChunkedMatrix
-    from ligero_tpu.ligero import LigeroCircuit
-    from ligero_tpu.synthetic import generate_random_circuit
+    from ligero_jax.engine.backend import Backend
+    from ligero_jax.engine.devmatrix import RowChunkedMatrix
+    from ligero_jax.ligero import LigeroCircuit
+    from ligero_jax.synthetic import generate_random_circuit
 
     c, outputs, _ = generate_random_circuit(F, 600, num_vars=16, seed=13)
     seed = SEEDS[1]

@@ -3,9 +3,9 @@ import random
 import numpy as np
 import pytest
 
-from ligero_tpu.engine.fieldops import FieldKernel
-from ligero_tpu.engine.ntt import DomainOps
-from ligero_tpu.fields import BN254_FR, BLS12_377_FQ
+from ligero_jax.engine.fieldops import FieldKernel
+from ligero_jax.engine.ntt import DomainOps
+from ligero_jax.fields import BN254_FR, BLS12_377_FQ
 
 
 @pytest.fixture
@@ -194,8 +194,8 @@ def test_sum_mod_wide_matches_tree_sum():
     to the add_mod tree reduction on every axis."""
     import numpy as np
 
-    from ligero_tpu.engine.fieldops import FieldKernel
-    from ligero_tpu.fields import BN254_FR
+    from ligero_jax.engine.fieldops import FieldKernel
+    from ligero_jax.fields import BN254_FR
 
     fk = FieldKernel(BN254_FR, np)
     rng = np.random.default_rng(42)

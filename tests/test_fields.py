@@ -3,7 +3,7 @@ import random
 import numpy as np
 import pytest
 
-from ligero_tpu.fields import BN254_FR, BLS12_377_FQ, FIELDS
+from ligero_jax.fields import BN254_FR, BLS12_377_FQ, FIELDS
 
 
 @pytest.mark.parametrize("field", FIELDS.values(), ids=lambda f: f.name)

@@ -22,17 +22,17 @@ import os
 
 import pytest
 
-from ligero_tpu.circuit.arithmetic import ArithmeticCircuit
-from ligero_tpu.circuit.r1cs import load_witness_json, parse_r1cs
-from ligero_tpu.fields import BLS12_377_FQ, BN254_FR, FieldSpec
-from ligero_tpu.hashes import column_hash
-from ligero_tpu.ligero import LigeroCircuit
-from ligero_tpu.ligero.core import calculate_t
-from ligero_tpu.sampling import (
+from ligero_jax.circuit.arithmetic import ArithmeticCircuit
+from ligero_jax.circuit.r1cs import load_witness_json, parse_r1cs
+from ligero_jax.fields import BLS12_377_FQ, BN254_FR, FieldSpec
+from ligero_jax.hashes import column_hash
+from ligero_jax.ligero import LigeroCircuit
+from ligero_jax.ligero.core import calculate_t
+from ligero_jax.sampling import (
     get_distinct_indices_from_prng,
     get_field_elements_from_prng,
 )
-from ligero_tpu.sponge import test_sponge
+from ligero_jax.sponge import test_sponge
 
 from fixtures import generate_bls12_377_circuit, generate_lemniscate_circuit
 

@@ -3,7 +3,7 @@ import hashlib
 import numpy as np
 import pytest
 
-from ligero_tpu.engine.hashops import (
+from ligero_jax.engine.hashops import (
     HashKernel,
     be_words_to_bytes,
     bytes_to_be_words,
@@ -59,43 +59,70 @@ def test_jax_hash_kernels_match_numpy():
     assert np.array_equal(got_np, np.asarray(got_jx))
 
 
-def test_pallas_prep_stream_major_layout():
-    """The stream-major Blake2s prep (one minor-dim transpose) must
-    produce the exact kernel input the original column-major prep did:
-    wk[bc, w, t, s, l] = column (t*1024+s*128+l)'s stream word
-    (bc*16+w), where words 0-1 are the u64-LE length prefix and word
-    q >= 2 is limb-pair (q-2) % 8 of element (q-2) // 8."""
+def _column_digests_np(u):
+    """HashKernel(np) over each column's serialization: u64-LE row
+    count, then each row's 16 limbs as 8 LE words."""
+    rows, n, _ = u.shape
+    cols = np.moveaxis(u, 1, 0)
+    packed = cols[..., 0::2] | (cols[..., 1::2] << np.uint32(16))
+    prefix = np.zeros((n, 2), np.uint32)
+    prefix[:, 0] = rows
+    pad = np.zeros((n, (-(2 + 8 * rows)) % 16), np.uint32)
+    words = np.concatenate([prefix, packed.reshape(n, -1), pad], axis=1)
+    return HashKernel(np).blake2s(words, 8 + 32 * rows)
+
+
+@pytest.mark.parametrize("rows,n", [
+    (1, 8),      # one block, which is also the last
+    (2, 8),      # first block full, last block 2 words
+    (5, 200),    # fori_loop over middle blocks; n not a multiple of TILE
+    (6, 256),    # two whole tiles, uint16 input
+])
+def test_blake2s_triton_kernel_interpret(rows, n):
+    """The Triton column-hash kernel in interpret mode: every column's
+    digest equals HashKernel(np)'s, including zero-padded partial tiles
+    and uint16 limbs (the resident chunks' storage type)."""
     import jax.numpy as jnp
 
+    from ligero_jax.engine.pallas_hash import blake2s_columns
+
+    rng = np.random.default_rng(rows * 1000 + n)
+    u = rng.integers(0, 2 ** 16, (rows, n, 16), dtype=np.uint32)
+    dtype = np.uint16 if n == 256 else np.uint32
+    got = np.asarray(blake2s_columns(jnp.asarray(u.astype(dtype)),
+                                     interpret=True))
+    assert got.shape == (n, 8)
+    assert np.array_equal(got, _column_digests_np(u))
+
+
+def test_resident_commit_gpu_route_one_launch(monkeypatch):
+    """On the GPU route the resident (row-chunked) commit hashes every
+    column in ONE kernel launch over the reassembled rows; its leaves
+    and Merkle levels equal the numpy Backend's.  The kernel runs in
+    interpret mode here."""
+    import jax.numpy as jnp
+
+    from ligero_jax.engine import backend as bmod
+    from ligero_jax.engine import pallas_hash
+    from ligero_jax.engine.devmatrix import RowChunkedMatrix
+    from ligero_jax.fields import BN254_FR
+
+    launches = []
+
+    def counted(u, interpret=False):
+        launches.append(u.shape)
+        return pallas_hash.blake2s_columns(u, interpret=True)
+
+    monkeypatch.setattr(bmod, "device_platform", lambda: "gpu")
+    monkeypatch.setattr(bmod, "blake2s_columns", counted)
+    be = bmod.Backend(BN254_FR, use_jax=True)
+    rows, n, chunk = 5, 16, 2
     rng = np.random.default_rng(3)
-    rows, n, L = 12, 1024, 16
-    u = rng.integers(0, 2**16, size=(rows, n, L), dtype=np.uint32)
-    byte_len = 8 + rows * L * 2
-    w_total = 2 + rows * (L // 2)
-    num_blocks = -(-byte_len // 64)
-    from ligero_tpu.engine.pallas_hash import BLOCKS_PER_STEP, COL_TILE
-    nbp = (-(-num_blocks // BLOCKS_PER_STEP)) * BLOCKS_PER_STEP
-
-    packed = u[..., 0::2] | (u[..., 1::2] << np.uint32(16))
-    ws = jnp.asarray(packed).transpose(0, 2, 1).reshape(rows * (L // 2), n)
-    prefix = np.zeros(2, dtype=np.uint32)
-    prefix[0] = rows
-    full = jnp.concatenate(
-        [jnp.broadcast_to(jnp.asarray(prefix)[:, None], (2, n)), ws,
-         jnp.zeros((nbp * 16 - w_total, n), np.uint32)], axis=0)
-    wk = np.asarray(full.reshape(nbp, 16, n // COL_TILE, 8, 128))
-
-    # independent element-wise reference for a scattering of positions
-    for bc, w, t, s, lane in [(0, 0, 0, 0, 0), (0, 1, 0, 0, 5),
-                              (0, 2, 0, 1, 7), (3, 9, 0, 4, 100),
-                              (nbp - 1, 15, 0, 7, 127)]:
-        c = t * COL_TILE + s * 128 + lane
-        q = bc * 16 + w
-        if q < 2:
-            want = prefix[q]
-        elif q - 2 < rows * (L // 2):
-            r, lp = (q - 2) // 8, (q - 2) % 8
-            want = u[r, c, 2 * lp] | (u[r, c, 2 * lp + 1] << np.uint32(16))
-        else:
-            want = 0
-        assert wk[bc, w, t, s, lane] == want, (bc, w, t, s, lane)
+    u = rng.integers(0, 2 ** 16, (rows, n, 16), dtype=np.uint32)
+    padded = np.concatenate([u, np.zeros((1, n, 16), np.uint32)])
+    rcm = RowChunkedMatrix([jnp.asarray(padded[i:i + chunk], jnp.uint16)
+                            for i in range(0, rows + 1, chunk)], rows, chunk)
+    got = be.commit_columns(rcm)
+    assert launches == [(rows, n, 16)]
+    want = bmod.Backend(BN254_FR).commit_columns(u)
+    assert got == want

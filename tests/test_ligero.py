@@ -15,13 +15,13 @@ from fixtures import (
 )
 from test_circuit import bls_point
 
-from ligero_tpu.circuit import ArithmeticCircuit
-from ligero_tpu.circuit.r1cs import load_witness_json, parse_r1cs
-from ligero_tpu.fields import BLS12_377_FQ, BN254_FR
-from ligero_tpu.ligero import LigeroCircuit, LigeroProof, calculate_t
-from ligero_tpu.ligero.core import DEFAULT_SECURITY_LEVEL
-from ligero_tpu.matrices import SparseMatrix
-from ligero_tpu.sponge import test_sponge
+from ligero_jax.circuit import ArithmeticCircuit
+from ligero_jax.circuit.r1cs import load_witness_json, parse_r1cs
+from ligero_jax.fields import BLS12_377_FQ, BN254_FR
+from ligero_jax.ligero import LigeroCircuit, LigeroProof, calculate_t
+from ligero_jax.ligero.core import DEFAULT_SECURITY_LEVEL
+from ligero_jax.matrices import SparseMatrix
+from ligero_jax.sponge import test_sponge
 
 needs_circom = pytest.mark.skipif(not os.path.isdir(REFERENCE_CIRCOM),
                                   reason="reference circom fixtures not mounted")
@@ -211,7 +211,7 @@ def test_proof_serialization_roundtrip():
 
 def test_engine_equivalence_proof_bytes():
     """numpy and jitted-JAX engines must produce byte-identical proofs."""
-    from ligero_tpu.engine.backend import get_backend
+    from ligero_jax.engine.backend import get_backend
     F = BN254_FR
     proofs = []
     for use_jax in (False, True):
@@ -227,7 +227,7 @@ def test_engine_equivalence_proof_bytes():
 
 @needs_circom
 def test_poseidon_prove_and_verify():
-    from ligero_tpu.engine.backend import get_backend
+    from ligero_jax.engine.backend import get_backend
     F = BN254_FR
     cs = parse_r1cs(os.path.join(REFERENCE_CIRCOM, "poseidon/poseidon.r1cs"), F)
     circuit, outputs = ArithmeticCircuit.from_constraint_system(cs, F)
@@ -349,7 +349,7 @@ def test_cube_prove_and_verify():
     ``x * x2 === 27`` compiles to a (-1)*const(27) Mul gate, which the
     reference's generate_matrices assumes impossible (mod.rs:329-331) and
     never proves — supported here as a strict generalisation."""
-    from ligero_tpu.circuit.witness import compute_witness
+    from ligero_jax.circuit.witness import compute_witness
     F = BN254_FR
     cs = parse_r1cs(os.path.join(REFERENCE_CIRCOM, "cube.r1cs"), F)
     circuit, outputs = ArithmeticCircuit.from_constraint_system(cs, F)
@@ -373,7 +373,7 @@ def test_cube_prove_and_verify():
 def test_repeated_squaring_equivalent_prove_and_verify():
     """BASELINE config #3: in-tree equivalent of repeated_squaring_10
     (the reference ships no compiled .r1cs for it)."""
-    from ligero_tpu.circuit.r1cs import (
+    from ligero_jax.circuit.r1cs import (
         repeated_squaring_constraint_system, repeated_squaring_witness)
     F = BN254_FR
     cs = repeated_squaring_constraint_system(F)
@@ -450,7 +450,7 @@ def test_coo_fast_path_matches_golden_matrix():
     exactly the nonzero multiset of the golden-structure SparseMatrix
     (lazy .a property), across gate mixes incl. const operands and both
     output gate kinds."""
-    from ligero_tpu.synthetic import generate_random_circuit
+    from ligero_jax.synthetic import generate_random_circuit
 
     def check(lig):
         rows, cols, vals = lig._a_fast.to_coo()

@@ -1,7 +1,7 @@
 """Matrix tests mirroring /root/reference/src/matrices/mod.rs:174-208."""
 
-from ligero_tpu.fields import BN254_FR
-from ligero_tpu.matrices import DenseMatrix, SparseMatrix
+from ligero_jax.fields import BN254_FR
+from ligero_jax.matrices import DenseMatrix, SparseMatrix
 
 F = BN254_FR
 

@@ -1,8 +1,8 @@
 import hashlib
 
-from ligero_tpu.fields import BN254_FR
-from ligero_tpu.hashes import column_hash, serialize_field_vec, sha256_compress
-from ligero_tpu.merkle import MerklePath, MerkleTree, create_merkle_tree
+from ligero_jax.fields import BN254_FR
+from ligero_jax.hashes import column_hash, serialize_field_vec, sha256_compress
+from ligero_jax.merkle import MerklePath, MerkleTree, create_merkle_tree
 
 
 def test_serialize_field_vec():
@@ -48,9 +48,9 @@ def test_digest_lists_matches_per_level_path():
     packing) must equal the per-level _tree_levels download path byte
     for byte, for every tree size class incl. the n=1 no-inner edge."""
     import numpy as np
-    from ligero_tpu.engine.backend import Backend
-    from ligero_tpu.engine.hashops import be_words_to_bytes, words_to_le_bytes
-    from ligero_tpu.fields import BN254_FR
+    from ligero_jax.engine.backend import Backend
+    from ligero_jax.engine.hashops import be_words_to_bytes, words_to_le_bytes
+    from ligero_jax.fields import BN254_FR
 
     for use_jax in (False, True):
         be = Backend(BN254_FR, use_jax=use_jax)

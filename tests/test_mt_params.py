@@ -11,13 +11,13 @@ from __future__ import annotations
 
 import pytest
 
-from ligero_tpu.fields import BN254_FR
-from ligero_tpu.ligero import LigeroCircuit
-from ligero_tpu.ligero.types import (LigeroMTPoseidonParams,
+from ligero_jax.fields import BN254_FR
+from ligero_jax.ligero import LigeroCircuit
+from ligero_jax.ligero.types import (LigeroMTPoseidonParams,
                                      LigeroMTTestParams,
                                      is_default_mt_params)
-from ligero_tpu.merkle import MerkleTree, create_merkle_tree
-from ligero_tpu.sponge import test_sponge
+from ligero_jax.merkle import MerkleTree, create_merkle_tree
+from ligero_jax.sponge import test_sponge
 
 from fixtures import generate_lemniscate_circuit
 
@@ -72,7 +72,7 @@ def test_params_change_the_transcript():
 
 
 def test_poseidon_params_zk_roundtrip():
-    from ligero_tpu.synthetic import generate_random_circuit
+    from ligero_jax.synthetic import generate_random_circuit
     # lambda small enough that the 3t blinding fits the toy instance
     # (same parameters as tests/test_zk.py)
     c, outputs, vars_ = generate_random_circuit(BN254_FR, 96, num_vars=4,

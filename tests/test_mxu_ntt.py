@@ -1,17 +1,19 @@
-"""MXU four-step NTT: hermetic validation of the exact integer path.
+"""Four-step NTT: validation of the exact integer path.
 
-mxu_ntt_numpy runs the SAME shared numeric core as the Pallas kernel
+mxu_ntt_numpy runs the SAME shared numeric core as the device route
 (7-bit limb matmuls, shifted base-2^7 accumulation, regroup, 17-step
-REDC, R*2^32 twiddle compensation) with numpy standing in for the MXU
-dot — bit-compared against the production DomainOps NTT."""
+REDC, R*2^32 twiddle compensation) with numpy standing in for the int8
+dot — bit-compared against the production DomainOps NTT; the jitted
+device route (ntt_fourstep / ntt_fourstep_any) is compared the same
+way."""
 
 import numpy as np
 import pytest
 
-from ligero_tpu.engine.fieldops import FieldKernel
-from ligero_tpu.engine.mxu_ntt import mxu_ntt_numpy, split_n
-from ligero_tpu.engine.ntt import DomainOps
-from ligero_tpu.fields import BN254_FR
+from ligero_jax.engine.fieldops import FieldKernel
+from ligero_jax.engine.mxu_ntt import mxu_ntt_numpy, split_n
+from ligero_jax.engine.ntt import DomainOps
+from ligero_jax.fields import BN254_FR
 
 F = BN254_FR
 
@@ -19,8 +21,6 @@ F = BN254_FR
 def test_split_n():
     assert split_n(1024) == (32, 32)
     assert split_n(2048) == (64, 32)
-    # round-5 flip: tallest admissible n1 (mxu_factors_ab.json —
-    # (128, 32) 103.0M points/s vs (64, 64) 95.0M on-chip)
     assert split_n(4096) == (128, 32)
     assert split_n(8192) == (128, 64)
     assert split_n(16384) == (128, 128)
@@ -71,10 +71,20 @@ def test_mxu_ntt_edge_values():
 
 def test_fused_stage_matches_loop_form():
     """The single-matmul fused stage (limbs in the contraction) is
-    bit-identical to the per-m loop + shifted block adds."""
-    from ligero_tpu.engine.mxu_ntt import (
-        _const_data, _fuse_w_left, _fuse_w_right, _limbs16_to_7,
-        _np_dot_i32, _stage_matmul, _stage_matmul_fused)
+    bit-identical to one matmul per constant limb m whose product adds
+    into redundant columns m..m+L7-1."""
+    from ligero_jax.engine.mxu_ntt import (
+        L7, _const_data, _fuse_w_left, _fuse_w_right, _limbs16_to_7,
+        _np_dot_i32, _stage_matmul)
+
+    def loop_form(w7, d7, data_left):
+        _, rows, cols = d7.shape
+        out = np.zeros((2 * L7 - 1, rows, cols), np.uint32)
+        for m in range(L7):
+            for la in range(L7):
+                out[m + la] += (_np_dot_i32(d7[la], w7[m]) if data_left
+                                else _np_dot_i32(w7[m], d7[la]))
+        return out
 
     n = 1024
     w2, w1, _t16 = _const_data(F.name, n, False)
@@ -84,23 +94,19 @@ def test_fused_stage_matches_loop_form():
         [int(v) % F.p for v in rng.integers(0, 2 ** 63, n)]
     ).reshape(n2, n1, F.num_limbs).transpose(2, 0, 1)  # (L, n2, n1)
     d7 = _limbs16_to_7(np, x)
-    loop = _stage_matmul(np, _np_dot_i32, w2, d7, data_left=False)
-    fused = _stage_matmul_fused(np, _np_dot_i32, _fuse_w_right(w2), d7,
-                                data_left=False)
-    for a, b in zip(loop, fused):
-        assert np.array_equal(a, b)
-    loop = _stage_matmul(np, _np_dot_i32, w1, d7, data_left=True)
-    fused = _stage_matmul_fused(np, _np_dot_i32, _fuse_w_left(w1), d7,
-                                data_left=True)
-    for a, b in zip(loop, fused):
-        assert np.array_equal(a, b)
+    fused = _stage_matmul(np, _np_dot_i32, _fuse_w_right(w2), d7,
+                          data_left=False)
+    assert np.array_equal(fused, loop_form(w2, d7, data_left=False))
+    fused = _stage_matmul(np, _np_dot_i32, _fuse_w_left(w1), d7,
+                          data_left=True)
+    assert np.array_equal(fused, loop_form(w1, d7, data_left=True))
 
 
 def test_radix2_split_math_matches_domain_ops():
     """The Cooley-Tukey split wrapper's math (even/odd leaves, Montgomery
     twiddle combine, per-level inverse 1/2 via extra_shift, canon_out
     threading) replayed with numpy leaves — bit-compared to DomainOps."""
-    from ligero_tpu.engine.mxu_ntt import _split_twiddles, mxu_ntt_numpy
+    from ligero_jax.engine.mxu_ntt import _split_twiddles, mxu_ntt_numpy
 
     fk = FieldKernel(F, np)
     leaf = 512
@@ -139,7 +145,7 @@ def test_post_root_folding_matches_explicit_twiddle():
     """post_root_n folds the split's odd-branch twiddle w_{2n}^{k} into
     the leaf constants (stage-2 twiddle x stage-3 column scale) — must
     equal NTT followed by an explicit Montgomery twiddle multiply."""
-    from ligero_tpu.engine.mxu_ntt import _split_twiddles, mxu_ntt_numpy
+    from ligero_jax.engine.mxu_ntt import _split_twiddles, mxu_ntt_numpy
 
     fk = FieldKernel(F, np)
     n, parent = 512, 1024
@@ -164,7 +170,7 @@ def test_post_root_folding_matches_explicit_twiddle():
 def test_cios_mont_mul_matches_sos():
     """The CIOS-interleaved Montgomery product is bit-identical to the
     separate product+REDC formulation (canonical output is unique)."""
-    from ligero_tpu.engine.mxu_ntt import _FieldVm
+    from ligero_jax.engine.mxu_ntt import _FieldVm
 
     fv = _FieldVm(np, F)
     rng = np.random.default_rng(31)
@@ -177,14 +183,13 @@ def test_cios_mont_mul_matches_sos():
 
 
 def test_fold_redc_bit_exact_kernel_paths():
-    """LIGERO_MXU_FOLD_REDC variant: the data-parallel fold REDC is
-    bit-identical to the serial 17-step chain through the whole numpy
-    kernel (forward, inverse, canonical epilogue) — round-3 VERDICT
-    item 5's ILP attack on the REDC dependency chain."""
+    """FOLD_REDC variant: the data-parallel fold REDC is bit-identical
+    to the serial 17-step chain through the whole numpy path (forward,
+    inverse, canonical epilogue)."""
     import numpy as np
 
-    import ligero_tpu.engine.mxu_ntt as mx
-    from ligero_tpu.fields import BN254_FR as F
+    import ligero_jax.engine.mxu_ntt as mx
+    from ligero_jax.fields import BN254_FR as F
 
     rng = np.random.default_rng(11)
     n = 2048
@@ -206,11 +211,11 @@ def test_fold_redc_bit_exact_kernel_paths():
 
 
 def test_mxu_gate_excludes_wide_fields():
-    """BLS12-377 Fq (24 limbs) must not route onto the MXU kernel: the
-    int8 limb split is sized for 16-limb operands (< 2^259) and would
-    silently truncate wider moduli."""
-    from ligero_tpu.engine.mxu_ntt import mxu_any_ok
-    from ligero_tpu.fields import BLS12_377_FQ, BN254_FR
+    """BLS12-377 Fq (24 limbs) must not route onto the four-step NTT:
+    the int8 limb split is sized for 16-limb operands (< 2^259) and
+    would silently truncate wider moduli."""
+    from ligero_jax.engine.mxu_ntt import mxu_any_ok
+    from ligero_jax.fields import BLS12_377_FQ, BN254_FR
 
     assert mxu_any_ok(2048, BN254_FR)
     assert not mxu_any_ok(2048, BLS12_377_FQ)
@@ -218,14 +223,14 @@ def test_mxu_gate_excludes_wide_fields():
 
 
 def test_mxu_lc_numpy_bit_exact():
-    """MXU challenge combination (mxu_lc.py): hermetic numpy spec
+    """int8 challenge combination (mxu_lc.py): numpy spec
     bit-compared against the host Montgomery kernel, incl. the row-chunk
     combine and max-density operands (bound stress)."""
     import numpy as np
 
-    from ligero_tpu.engine.fieldops import FieldKernel
-    from ligero_tpu.engine.mxu_lc import ROWS_MAX, mxu_lc_numpy
-    from ligero_tpu.fields import BN254_FR as F
+    from ligero_jax.engine.fieldops import FieldKernel
+    from ligero_jax.engine.mxu_lc import ROWS_MAX, mxu_lc_numpy
+    from ligero_jax.fields import BN254_FR as F
 
     rng = np.random.default_rng(9)
     fk = FieldKernel(F, np)
@@ -249,58 +254,54 @@ def test_mxu_lc_numpy_bit_exact():
                           mxu_lc_numpy(F, preenc, r))
 
 
-def test_mxu_lc_pallas_interpret_bit_exact():
-    """The Pallas lc kernel (grid over k tiles x row blocks, scratch
-    accumulator) bit-compared against the host Montgomery kernel in
-    interpret mode, incl. row padding (129 -> 256), multiple row steps,
-    and the > ROWS_MAX chunked combine."""
-    import jax.numpy as jnp
-    import numpy as np
+def _mont_rows(rng, rows, width):
+    return F.ints_to_mont_limbs(
+        [int(v) for v in rng.integers(0, 2 ** 63, rows * width)]
+    ).reshape(rows, width, F.num_limbs).astype(np.uint32)
 
-    from ligero_tpu.engine.fieldops import FieldKernel
-    from ligero_tpu.engine.mxu_lc import ROWS_MAX, mxu_lc
-    from ligero_tpu.fields import BN254_FR as F
 
-    rng = np.random.default_rng(11)
+@pytest.mark.parametrize("rows,k", [(129, 32), (2048 + 37, 8)])
+def test_mxu_lc_device_matches_spec(rows, k):
+    """The jitted int8 combination (the GPU's lc route) equals the numpy
+    spec and the Montgomery-product combination, incl. rows > ROWS_MAX
+    (chunked partials combined mod p)."""
+    import jax
+
+    from ligero_jax.engine.mxu_lc import mxu_lc, mxu_lc_numpy
+
+    rng = np.random.default_rng(rows)
+    preenc = _mont_rows(rng, rows, k)
+    r = _mont_rows(rng, rows, 1)[:, 0]
+    got = np.asarray(jax.jit(lambda p, q: mxu_lc(F, p, q))(preenc, r))
+    assert np.array_equal(got, mxu_lc_numpy(F, preenc, r))
     fk = FieldKernel(F, np)
-    for rows, k in ((129, 128), (512, 256), (ROWS_MAX + 600, 128)):
-        preenc = F.ints_to_mont_limbs(
-            [int(v) for v in rng.integers(0, 2 ** 63, rows * k)]
-        ).reshape(rows, k, F.num_limbs).astype(np.uint32)
-        r = F.ints_to_mont_limbs(
-            [int(v) for v in rng.integers(0, 2 ** 63, rows)]).astype(np.uint32)
-        ref = np.asarray(
-            fk.sum_mod(fk.mont_mul(r[:, None, :], preenc), axis=0), np.uint32)
-        got = np.asarray(mxu_lc(F, jnp.asarray(preenc), jnp.asarray(r),
-                                interpret=True), np.uint32)
-        assert np.array_equal(ref, got), (rows, k)
+    ref = fk.sum_mod(fk.mont_mul(r[:, None, :], preenc), axis=0)
+    assert np.array_equal(got, np.asarray(ref, np.uint32))
 
 
-def test_mxu_lc_k_tile_gate():
-    """ADVICE r4 #2: mxu_lc_ok must reject k values whose largest
-    128-divisible tile still exceeds the VMEM dot-transient budget
-    (e.g. k = 128 * large-prime), instead of passing the gate and
-    failing to lower; admissible k picks the largest in-budget divisor."""
-    from ligero_tpu.engine.mxu_lc import (_VMEM_DOT_BUDGET, L7, _pick_k_tile,
-                                          mxu_lc_ok)
-    from ligero_tpu.fields import BLS12_377_FQ, BN254_FR
+def test_split_route_16384_matches_domain_ops():
+    """The jitted radix-2 split over two 8192-point four-step leaves
+    (odd-branch twiddle folded into the leaf constants) — the 2^20
+    commit's n=16384 transform with the canonical epilogue."""
+    import jax
+    import jax.numpy as jnp
 
-    assert _pick_k_tile(512) == 512            # fits whole
-    assert _pick_k_tile(1024) == 512           # halves into budget
-    assert _pick_k_tile(4096) == 512
-    assert _pick_k_tile(640) == 640            # odd multiple, in budget
-    assert _pick_k_tile(140 * 128) == 896      # 128*140 -> best divisor 128*7
-    assert _pick_k_tile(127) is None           # not 128-divisible
-    # k = 128 * p for prime p too large to fit: only tiles are 128*p
-    # (over budget) and 128 (in budget) -> 128 is admissible
-    assert _pick_k_tile(128 * 9973) == 128
-    # every admissible tile respects the budget
-    for k in (128, 256, 512, 640, 1024, 2048, 128 * 3 * 5 * 7):
-        t = _pick_k_tile(k)
-        assert t is not None and k % t == 0 and t % 128 == 0
-        assert L7 * L7 * t * 4 <= _VMEM_DOT_BUDGET
-    assert mxu_lc_ok(BN254_FR, 512) and not mxu_lc_ok(BN254_FR, 127)
-    assert not mxu_lc_ok(BLS12_377_FQ, 512)    # 24-limb field excluded
+    from ligero_jax.engine.mxu_ntt import ntt_fourstep_any
+
+    n = 16384
+    x = _mont_rows(np.random.default_rng(n), 1, n)
+    got = np.asarray(jax.jit(lambda a: ntt_fourstep_any(
+        FieldKernel(F, jnp), a, n, canon_out=True))(x))
+    fk = FieldKernel(F, np)
+    assert np.array_equal(got, fk.from_mont(DomainOps(fk, n).fft_padded(x)))
+
+
+def test_mxu_lc_gate():
+    """Only 16-limb fields take the int8 combination."""
+    from ligero_jax.engine.mxu_lc import mxu_lc_ok
+    from ligero_jax.fields import BLS12_377_FQ
+
+    assert mxu_lc_ok(F) and not mxu_lc_ok(BLS12_377_FQ)
 
 
 def test_rand_field_elements_u64_reuse_contract():
@@ -309,9 +310,9 @@ def test_rand_field_elements_u64_reuse_contract():
     buffer for phase-local consumers."""
     import numpy as np
 
-    from ligero_tpu import native
-    from ligero_tpu.fields import BN254_FR as F
-    from ligero_tpu.sampling import rand_field_elements_u64
+    from ligero_jax import native
+    from ligero_jax.fields import BN254_FR as F
+    from ligero_jax.sampling import rand_field_elements_u64
 
     if not native.available():  # the cache only exists on the native path
         import pytest

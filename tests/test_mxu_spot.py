@@ -1,4 +1,4 @@
-"""MXU spot-column evaluation (mxu_spot.py): bit-exactness vs the NTT
+"""Spot-column evaluation (mxu_spot.py): bit-exactness vs the NTT
 route.
 
 The verifier's lazy per-column r-encodes and the streaming prover's
@@ -9,10 +9,10 @@ must reproduce the NTT route's canonical representatives exactly
 import numpy as np
 import pytest
 
-from ligero_tpu.engine.backend import get_backend
-from ligero_tpu.engine.mxu_spot import (K_MAX, mxu_spot_numpy, mxu_spot_ok,
+from ligero_jax.engine.backend import get_backend
+from ligero_jax.engine.mxu_spot import (K_MAX, mxu_spot_numpy, mxu_spot_ok,
                                         spot_weights, mxu_spot_eval)
-from ligero_tpu.fields import BLS12_377_FQ, BN254_FR
+from ligero_jax.fields import BLS12_377_FQ, BN254_FR
 
 F = BN254_FR
 
@@ -35,7 +35,7 @@ def test_spot_numpy_matches_ntt_route(rows, k, n):
     got = mxu_spot_numpy(F, coeffs, js, n)
     assert np.array_equal(want, got)
     # canonical output matches from_mont of the Montgomery route
-    from ligero_tpu.engine.fieldops import FieldKernel
+    from ligero_jax.engine.fieldops import FieldKernel
     fk = FieldKernel(F, np)
     assert np.array_equal(np.asarray(fk.from_mont(want), np.uint32),
                           mxu_spot_numpy(F, coeffs, js, n, canon_out=True))

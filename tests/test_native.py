@@ -3,8 +3,8 @@ import random
 import numpy as np
 import pytest
 
-from ligero_tpu import native
-from ligero_tpu.fields import BLS12_377_FQ, BN254_FR
+from ligero_jax import native
+from ligero_jax.fields import BLS12_377_FQ, BN254_FR
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native kernels unavailable")
@@ -61,7 +61,7 @@ def test_eval_circuit_matches_python():
 
 
 def test_sparse_row_mul_matches_python():
-    from ligero_tpu.matrices import SparseMatrix
+    from ligero_jax.matrices import SparseMatrix
     F = BN254_FR
     rng = random.Random(5)
     num_rows, num_cols = 20, 15
@@ -86,10 +86,10 @@ def test_sparse_row_mul_matches_python():
 
 def test_mul_sum_rows_matches_host_kernel():
     import numpy as np
-    from ligero_tpu import native
-    from ligero_tpu.engine.fieldops import FieldKernel
-    from ligero_tpu.fields import BN254_FR as F
-    from ligero_tpu.sampling import rand_field_elements_limbs
+    from ligero_jax import native
+    from ligero_jax.engine.fieldops import FieldKernel
+    from ligero_jax.fields import BN254_FR as F
+    from ligero_jax.sampling import rand_field_elements_limbs
     if not native.available():
         import pytest
         pytest.skip("native lib not built")
@@ -107,10 +107,10 @@ def test_mul_sum_rows_matches_host_kernel():
 
 def test_quad_spot_matches_host_kernel():
     import numpy as np
-    from ligero_tpu import native
-    from ligero_tpu.engine.fieldops import FieldKernel
-    from ligero_tpu.fields import BN254_FR as F
-    from ligero_tpu.sampling import rand_field_elements_limbs
+    from ligero_jax import native
+    from ligero_jax.engine.fieldops import FieldKernel
+    from ligero_jax.fields import BN254_FR as F
+    from ligero_jax.sampling import rand_field_elements_limbs
     if not native.available():
         import pytest
         pytest.skip("native lib not built")

@@ -6,9 +6,9 @@ hashes.serialize_field_vec)."""
 import numpy as np
 import pytest
 
-from ligero_tpu import native
-from ligero_tpu.fields import BN254_FR, BLS12_377_FQ
-from ligero_tpu.hashes import serialize_field_vec
+from ligero_jax import native
+from ligero_jax.fields import BN254_FR, BLS12_377_FQ
+from ligero_jax.hashes import serialize_field_vec
 
 pytestmark = pytest.mark.skipif(not native.pylong_available(),
                                 reason="native pylong converters unavailable")
@@ -80,7 +80,7 @@ def test_chacha_sampler_chunk_boundaries_and_reuse():
     sampler at counts around its 2^19-attempt chunk boundary, and the
     reuse=True buffer cache must hand back the same storage without
     changing the draws."""
-    import ligero_tpu.sampling as S
+    import ligero_jax.sampling as S
     f = BN254_FR
     for count in (1, 7, (1 << 19) - 3, (1 << 19) + 11):
         seed = bytes(range(32))

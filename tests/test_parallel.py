@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from ligero_tpu.fields import BN254_FR
+from ligero_jax.fields import BN254_FR
 
 F = BN254_FR
 
@@ -19,9 +19,9 @@ def _random_inputs(four_m, k, seed=0):
 
 def _host_reference(preenc, r, four_m, k, n):
     """Host golden: numpy engine + hashlib commitment."""
-    from ligero_tpu.engine.backend import Backend
-    from ligero_tpu.hashes import column_hash
-    from ligero_tpu.merkle import MerkleTree
+    from ligero_jax.engine.backend import Backend
+    from ligero_jax.hashes import column_hash
+    from ligero_jax.merkle import MerkleTree
 
     be = Backend(F)
     coeffs, evals = be.rs_encode_rows(preenc, k, n)
@@ -34,8 +34,8 @@ def _host_reference(preenc, r, four_m, k, n):
 
 def test_single_chip_core_matches_host():
     import jax
-    from ligero_tpu.engine.hashops import be_words_to_bytes, words_to_le_bytes
-    from ligero_tpu.parallel import make_prover_core
+    from ligero_jax.engine.hashops import be_words_to_bytes, words_to_le_bytes
+    from ligero_jax.parallel import make_prover_core
 
     four_m, k = 16, 16
     n = 8 * k
@@ -55,8 +55,8 @@ def test_sharded_core_matches_host(n_devices):
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh
-    from ligero_tpu.engine.hashops import be_words_to_bytes, words_to_le_bytes
-    from ligero_tpu.parallel import make_sharded_prover_core
+    from ligero_jax.engine.hashops import be_words_to_bytes, words_to_le_bytes
+    from ligero_jax.parallel import make_sharded_prover_core
 
     four_m, k = 16, 16
     n = 8 * k
@@ -89,12 +89,12 @@ def test_full_prover_sharded_byte_identical(n_devices):
     import jax
     from jax.sharding import Mesh
 
-    from ligero_tpu.circuit import ArithmeticCircuit
-    from ligero_tpu.engine.backend import Backend
-    from ligero_tpu.ligero import LigeroCircuit
-    from ligero_tpu.parallel import ShardedBackend
-    from ligero_tpu.sponge import test_sponge
-    from ligero_tpu.synthetic import generate_random_circuit
+    from ligero_jax.circuit import ArithmeticCircuit
+    from ligero_jax.engine.backend import Backend
+    from ligero_jax.ligero import LigeroCircuit
+    from ligero_jax.parallel import ShardedBackend
+    from ligero_jax.sponge import test_sponge
+    from ligero_jax.synthetic import generate_random_circuit
 
     c, outputs, vars_ = generate_random_circuit(F, 600, num_vars=8, seed=11)
     mesh = Mesh(np.array(jax.devices()[:n_devices]), axis_names=("rows",))
@@ -118,13 +118,13 @@ def test_full_prover_sharded_poseidon_fixture():
     import jax
     from jax.sharding import Mesh
 
-    from ligero_tpu.circuit import ArithmeticCircuit
-    from ligero_tpu.circuit.r1cs import load_witness_json, parse_r1cs
-    from ligero_tpu.engine.backend import Backend
-    from ligero_tpu.engine.fieldops import FieldKernel
-    from ligero_tpu.ligero import LigeroCircuit
-    from ligero_tpu.parallel import ShardedBackend
-    from ligero_tpu.sponge import test_sponge
+    from ligero_jax.circuit import ArithmeticCircuit
+    from ligero_jax.circuit.r1cs import load_witness_json, parse_r1cs
+    from ligero_jax.engine.backend import Backend
+    from ligero_jax.engine.fieldops import FieldKernel
+    from ligero_jax.ligero import LigeroCircuit
+    from ligero_jax.parallel import ShardedBackend
+    from ligero_jax.sponge import test_sponge
 
     cs = parse_r1cs("/root/reference/circom/poseidon/poseidon.r1cs", F)
     witness = load_witness_json(
@@ -157,12 +157,12 @@ def test_prove_batch_sharded_byte_identical():
     import jax
     from jax.sharding import Mesh
 
-    from ligero_tpu.circuit import ArithmeticCircuit
-    from ligero_tpu.circuit.r1cs import parse_r1cs
-    from ligero_tpu.engine.backend import Backend
-    from ligero_tpu.ligero import LigeroCircuit, LigeroProof
-    from ligero_tpu.parallel import ShardedBackend
-    from ligero_tpu.sponge import test_sponge
+    from ligero_jax.circuit import ArithmeticCircuit
+    from ligero_jax.circuit.r1cs import parse_r1cs
+    from ligero_jax.engine.backend import Backend
+    from ligero_jax.ligero import LigeroCircuit, LigeroProof
+    from ligero_jax.parallel import ShardedBackend
+    from ligero_jax.sponge import test_sponge
 
     cs = parse_r1cs("/root/reference/circom/multiplication.r1cs", F)
     circuit, outputs = ArithmeticCircuit.from_constraint_system(cs, F)
@@ -200,10 +200,10 @@ def test_prove_batch_sharded_zk():
     import jax
     from jax.sharding import Mesh
 
-    from ligero_tpu.ligero import LigeroCircuit
-    from ligero_tpu.parallel import ShardedBackend
-    from ligero_tpu.sponge import test_sponge
-    from ligero_tpu.synthetic import generate_random_circuit
+    from ligero_jax.ligero import LigeroCircuit
+    from ligero_jax.parallel import ShardedBackend
+    from ligero_jax.sponge import test_sponge
+    from ligero_jax.synthetic import generate_random_circuit
 
     c, outputs, vars_ = generate_random_circuit(F, 96, num_vars=4, seed=3)
     mesh = Mesh(np.array(jax.devices()[:4]), axis_names=("rows",))

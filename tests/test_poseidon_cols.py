@@ -12,12 +12,12 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from ligero_tpu.engine.backend import get_backend
-from ligero_tpu.engine.devmatrix import RowChunkedMatrix
-from ligero_tpu.engine.poseidon_cols import get_poseidon_columns
-from ligero_tpu.fields import BN254_FR
-from ligero_tpu.ligero.types import LigeroMTPoseidonParams
-from ligero_tpu.sponge import test_poseidon_config
+from ligero_jax.engine.backend import get_backend
+from ligero_jax.engine.devmatrix import RowChunkedMatrix
+from ligero_jax.engine.poseidon_cols import get_poseidon_columns
+from ligero_jax.fields import BN254_FR
+from ligero_jax.ligero.types import LigeroMTPoseidonParams
+from ligero_jax.sponge import test_poseidon_config
 
 F = BN254_FR
 
@@ -73,9 +73,9 @@ def test_device_digests_chunked_sources():
 def test_poseidon_params_device_vs_host_proof_bytes():
     """Full protocol: jax backend (device Poseidon commit) and numpy
     backend (host sponge loop) produce byte-identical proofs."""
-    from ligero_tpu.ligero import LigeroCircuit
-    from ligero_tpu.sponge import test_sponge
-    from ligero_tpu.synthetic import generate_random_circuit
+    from ligero_jax.ligero import LigeroCircuit
+    from ligero_jax.sponge import test_sponge
+    from ligero_jax.synthetic import generate_random_circuit
 
     c, outputs, vars_ = generate_random_circuit(F, 400, num_vars=12, seed=41)
     mt = LigeroMTPoseidonParams(F)
@@ -93,9 +93,9 @@ def test_poseidon_params_streaming_commit():
     """A resident budget too small to materialize U forces the streaming
     commit — now allowed under Poseidon params via the device hasher;
     the proof still byte-matches the host (non-streaming) path."""
-    from ligero_tpu.ligero import LigeroCircuit
-    from ligero_tpu.sponge import test_sponge
-    from ligero_tpu.synthetic import generate_random_circuit
+    from ligero_jax.ligero import LigeroCircuit
+    from ligero_jax.sponge import test_sponge
+    from ligero_jax.synthetic import generate_random_circuit
 
     c, outputs, vars_ = generate_random_circuit(F, 400, num_vars=12, seed=43)
     mt = LigeroMTPoseidonParams(F)
@@ -103,7 +103,7 @@ def test_poseidon_params_streaming_commit():
                        mt_params=mt)
     pn = ln.prove(vars_, test_sponge(F))
 
-    import ligero_tpu.ligero.core as core_mod
+    import ligero_jax.ligero.core as core_mod
     lj = LigeroCircuit(c, outputs, backend=get_backend(F, use_jax=True),
                        mt_params=mt)
     old = core_mod.Backend.MAX_DEVICE_BYTES

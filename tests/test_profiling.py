@@ -5,7 +5,7 @@ import os
 
 import numpy as np
 
-from ligero_tpu.utils.profiling import PhaseTimer, phase_timer, trace
+from ligero_jax.utils.profiling import PhaseTimer, phase_timer, trace
 
 
 def test_phase_timer_collects_and_reports():
@@ -45,10 +45,10 @@ def test_trace_writes_profile(tmp_path):
 
 def test_prover_phases_timed():
     """The prover's phase annotations feed the global timer."""
-    from ligero_tpu.fields import BN254_FR
-    from ligero_tpu.ligero import LigeroCircuit
-    from ligero_tpu.sponge import test_sponge
-    from ligero_tpu.synthetic import generate_random_circuit
+    from ligero_jax.fields import BN254_FR
+    from ligero_jax.ligero import LigeroCircuit
+    from ligero_jax.sponge import test_sponge
+    from ligero_jax.synthetic import generate_random_circuit
 
     c, outs, vars_ = generate_random_circuit(BN254_FR, 64, num_vars=4, seed=5)
     lig = LigeroCircuit(c, outs, lambda_=10)

@@ -11,10 +11,10 @@ are adversarial.
 import numpy as np
 import pytest
 
-from ligero_tpu.circuit import ArithmeticCircuit
-from ligero_tpu.fields import BN254_FR
-from ligero_tpu.ligero import LigeroCircuit, LigeroProof
-from ligero_tpu.sponge import test_sponge
+from ligero_jax.circuit import ArithmeticCircuit
+from ligero_jax.fields import BN254_FR
+from ligero_jax.ligero import LigeroCircuit, LigeroProof
+from ligero_jax.sponge import test_sponge
 
 F = BN254_FR
 

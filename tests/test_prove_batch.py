@@ -9,12 +9,12 @@ witness.
 import numpy as np
 import pytest
 
-from ligero_tpu.circuit.arithmetic import ArithmeticCircuit
-from ligero_tpu.circuit.r1cs import parse_r1cs
-from ligero_tpu.engine.backend import Backend
-from ligero_tpu.fields import BN254_FR
-from ligero_tpu.ligero import LigeroCircuit
-from ligero_tpu.sponge import test_sponge
+from ligero_jax.circuit.arithmetic import ArithmeticCircuit
+from ligero_jax.circuit.r1cs import parse_r1cs
+from ligero_jax.engine.backend import Backend
+from ligero_jax.fields import BN254_FR
+from ligero_jax.ligero import LigeroCircuit
+from ligero_jax.sponge import test_sponge
 
 F = BN254_FR
 R1CS = "/root/reference/circom/multiplication.r1cs"
@@ -78,7 +78,7 @@ def test_batch_empty():
 def _zk_instance(backend):
     # small lambda keeps t (and so the 3t blinding) small enough that
     # the zk width constraints fit the toy instance (see tests/test_zk.py)
-    from ligero_tpu.synthetic import generate_random_circuit
+    from ligero_jax.synthetic import generate_random_circuit
     c, outputs, vars_ = generate_random_circuit(F, 96, num_vars=4, seed=3)
     return LigeroCircuit(c, outputs, lambda_=10, backend=backend,
                          zk=True), vars_

@@ -9,8 +9,8 @@ import struct
 
 import pytest
 
-from ligero_tpu.circuit.r1cs import parse_r1cs
-from ligero_tpu.fields import BLS12_377_FQ, BN254_FR
+from ligero_jax.circuit.r1cs import parse_r1cs
+from ligero_jax.fields import BLS12_377_FQ, BN254_FR
 
 F = BN254_FR
 GOOD = "/root/reference/circom/multiplication.r1cs"
@@ -66,7 +66,7 @@ def test_goldens_still_parse():
 def test_wasm_witness_malformed_raises_valueerror(tmp_path):
     """compute_witness_wasm wraps interpreter failures in ValueError
     (untrusted-input boundary for the CLI / HTTP service)."""
-    from ligero_tpu.circuit.r1cs import compute_witness_wasm
+    from ligero_jax.circuit.r1cs import compute_witness_wasm
     good = open("/root/reference/circom/multiplication.wasm", "rb").read()
     rng = random.Random(4)
     mangles = [b"", b"XXXX" + good[4:], good[:50],
@@ -86,7 +86,7 @@ def test_wasm_witness_malformed_raises_valueerror(tmp_path):
 
 
 def test_wtns_malformed_raises_valueerror(tmp_path):
-    from ligero_tpu.circuit.r1cs import load_witness_wtns
+    from ligero_jax.circuit.r1cs import load_witness_wtns
     for data in (b"", b"XXXX", b"wtns" + b"\x00" * 4,
                  b"wtns" + struct.pack("<II", 2, 1) + b"\x01" * 6):
         p = tmp_path / "w.wtns"

@@ -1,9 +1,9 @@
 import numpy as np
 import pytest
 
-from ligero_tpu.chacha import ChaChaRng
-from ligero_tpu.fields import BN254_FR, BLS12_377_FQ
-from ligero_tpu.sampling import (
+from ligero_jax.chacha import ChaChaRng
+from ligero_jax.fields import BN254_FR, BLS12_377_FQ
+from ligero_jax.sampling import (
     gen_range,
     get_distinct_indices_from_prng,
     rand_field_element_scalar,

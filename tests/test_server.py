@@ -1,4 +1,4 @@
-"""HTTP prover service (`python -m ligero_tpu serve`).
+"""HTTP prover service (`python -m ligero_jax serve`).
 
 Deployment surface with no reference counterpart (SURVEY.md §1: the
 reference has no serve entry point); compiled circuits stay warm across
@@ -14,7 +14,7 @@ from http.server import HTTPServer
 
 import pytest
 
-from ligero_tpu.server import ProverService, make_handler
+from ligero_jax.server import ProverService, make_handler
 
 R1CS = "/root/reference/circom/multiplication.r1cs"
 WASM = "/root/reference/circom/multiplication.wasm"

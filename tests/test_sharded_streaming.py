@@ -15,10 +15,10 @@ north-star scaling design extended past per-device HBM.
 import numpy as np
 import pytest
 
-from ligero_tpu.engine.backend import Backend
-from ligero_tpu.engine.devmatrix import StreamedCodewords
-from ligero_tpu.fields import BN254_FR
-from ligero_tpu.parallel.sharded_backend import (ShardedBackend,
+from ligero_jax.engine.backend import Backend
+from ligero_jax.engine.devmatrix import StreamedCodewords
+from ligero_jax.fields import BN254_FR
+from ligero_jax.parallel.sharded_backend import (ShardedBackend,
                                                  ShardedCoeffs, _from_cyclic,
                                                  _to_cyclic)
 
@@ -98,9 +98,9 @@ def test_e2e_sharded_streaming_prove_verify(tiny_buffers):
     """Full prove+verify on an 8-device mesh with the streaming commit
     active (U never materialized anywhere), byte-compared against the
     numpy proof; r^T A coefficient rows also stream (mesh-resident)."""
-    from ligero_tpu.ligero import LigeroCircuit
-    from ligero_tpu.sponge import test_sponge
-    from ligero_tpu.synthetic import generate_random_circuit
+    from ligero_jax.ligero import LigeroCircuit
+    from ligero_jax.sponge import test_sponge
+    from ligero_jax.synthetic import generate_random_circuit
 
     c, outs, vars_ = generate_random_circuit(F, 600, num_vars=8, seed=4)
     lig = LigeroCircuit(c, outs, backend=ShardedBackend(F, _mesh()))
@@ -118,9 +118,9 @@ def test_e2e_sharded_streaming_prove_verify(tiny_buffers):
 def test_e2e_sharded_streaming_two_devices(tiny_buffers):
     """Same e2e on a 2-device mesh (different c*D step size exercises a
     different chunk/tail split)."""
-    from ligero_tpu.ligero import LigeroCircuit
-    from ligero_tpu.sponge import test_sponge
-    from ligero_tpu.synthetic import generate_random_circuit
+    from ligero_jax.ligero import LigeroCircuit
+    from ligero_jax.sponge import test_sponge
+    from ligero_jax.synthetic import generate_random_circuit
 
     c, outs, vars_ = generate_random_circuit(F, 300, num_vars=8, seed=9)
     lig = LigeroCircuit(c, outs, backend=ShardedBackend(F, _mesh(2)))
@@ -137,9 +137,9 @@ def test_e2e_sharded_streaming_two_devices(tiny_buffers):
 def test_zk_e2e_sharded_streaming(tiny_buffers):
     """zk prove on the mesh with streaming commit: blinded rows mesh-
     resident, byte-identical to the numpy zk proof."""
-    from ligero_tpu.ligero import LigeroCircuit
-    from ligero_tpu.sponge import test_sponge
-    from ligero_tpu.synthetic import generate_random_circuit
+    from ligero_jax.ligero import LigeroCircuit
+    from ligero_jax.sponge import test_sponge
+    from ligero_jax.synthetic import generate_random_circuit
 
     seed_zk = b"\x5a" * 32
     c, outs, vars_ = generate_random_circuit(F, 96, num_vars=4, seed=3)

@@ -1,7 +1,7 @@
 import pytest
 
-from ligero_tpu.fields import BN254_FR, BLS12_377_FQ
-from ligero_tpu.sponge import PoseidonSponge, test_poseidon_config, test_sponge
+from ligero_jax.fields import BN254_FR, BLS12_377_FQ
+from ligero_jax.sponge import PoseidonSponge, test_poseidon_config, test_sponge
 
 
 def test_config_shape():

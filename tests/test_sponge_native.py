@@ -7,9 +7,9 @@ position, post-squeeze re-absorb, multi-permute long inputs."""
 import numpy as np
 import pytest
 
-from ligero_tpu import native
-from ligero_tpu.fields import BLS12_377_FQ, BN254_FR
-from ligero_tpu.sponge import PoseidonSponge, test_sponge
+from ligero_jax import native
+from ligero_jax.fields import BLS12_377_FQ, BN254_FR
+from ligero_jax.sponge import PoseidonSponge, test_sponge
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native kernels unavailable")

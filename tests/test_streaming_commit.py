@@ -10,8 +10,8 @@ interleaved combination runs in coefficient space
 must stay bit-identical to the unstreamed numpy-backend proof.
 
 No reference counterpart (the reference holds U in host memory,
-/root/reference/src/ligero/mod.rs:516-551); this is the TPU-native
-scale-out of the same commitment.
+src/ligero/mod.rs:516-551); this is the device-resident scale-out of
+the same commitment.
 """
 
 import hashlib
@@ -19,10 +19,10 @@ import hashlib
 import numpy as np
 import pytest
 
-from ligero_tpu.engine.backend import Backend
-from ligero_tpu.engine.devmatrix import RowChunkedMatrix, StreamedCodewords
-from ligero_tpu.engine.hashops import HashKernel
-from ligero_tpu.fields import BN254_FR
+from ligero_jax.engine.backend import Backend
+from ligero_jax.engine.devmatrix import RowChunkedMatrix, StreamedCodewords
+from ligero_jax.engine.hashops import HashKernel
+from ligero_jax.fields import BN254_FR
 
 F = BN254_FR
 L = F.num_limbs
@@ -87,7 +87,7 @@ def test_commit_streaming_matches_direct(stream_budget, field):
     """commit_columns on a StreamedCodewords handle == commit_columns on
     the materialized matrix.  BLS12-377 (48-byte elements, 12 words/row)
     exercises the oscillating {2,10}-word carry widths."""
-    from ligero_tpu.fields import BLS12_377_FQ
+    from ligero_jax.fields import BLS12_377_FQ
     fld = F if field == "bn254" else BLS12_377_FQ
     be = Backend(fld, use_jax=True)
     be_np = Backend(fld)
@@ -131,9 +131,9 @@ def test_e2e_prove_verify_streaming_commit(stream_budget):
     """Full prove+verify with the streaming commit active (U never
     materialized), byte-compared against the numpy-backend proof.  The
     small circuit keeps r^T A on the fast (unchunked) path."""
-    from ligero_tpu.circuit import ArithmeticCircuit
-    from ligero_tpu.ligero import LigeroCircuit
-    from ligero_tpu.sponge import test_sponge
+    from ligero_jax.circuit import ArithmeticCircuit
+    from ligero_jax.ligero import LigeroCircuit
+    from ligero_jax.sponge import test_sponge
 
     def build():
         c = ArithmeticCircuit(F)
@@ -162,9 +162,9 @@ def test_zk_e2e_streaming_commit(stream_budget, monkeypatch):
     """zk prove with the streaming commit active: the blinded (k+3t)-wide
     coefficient rows stay chunk-resident, the codeword matrix is never
     materialized, and the proof is byte-identical to the numpy zk proof."""
-    from ligero_tpu.ligero import LigeroCircuit
-    from ligero_tpu.sponge import test_sponge
-    from ligero_tpu.synthetic import generate_random_circuit
+    from ligero_jax.ligero import LigeroCircuit
+    from ligero_jax.sponge import test_sponge
+    from ligero_jax.synthetic import generate_random_circuit
 
     calls = []
     orig = Backend.coeffs_resident
@@ -195,9 +195,9 @@ def test_e2e_streaming_commit_chunked_r_coeffs(stream_budget):
     prover's linear phase pairs a chunked u with chunked r rows, and the
     verifier's ntt_columns walks the chunked r.  Byte-compared against
     numpy."""
-    from ligero_tpu.ligero import LigeroCircuit
-    from ligero_tpu.sponge import test_sponge
-    from ligero_tpu.synthetic import generate_random_circuit
+    from ligero_jax.ligero import LigeroCircuit
+    from ligero_jax.sponge import test_sponge
+    from ligero_jax.synthetic import generate_random_circuit
 
     c, outs, vars_ = generate_random_circuit(F, 600, num_vars=8, seed=4)
     lig = LigeroCircuit(c, outs, backend=Backend(F, use_jax=True))

@@ -11,12 +11,12 @@ import warnings
 import numpy as np
 import pytest
 
-from ligero_tpu.circuit.arithmetic import ArithmeticCircuit
-from ligero_tpu.circuit.r1cs import parse_r1cs
-from ligero_tpu.engine.backend import Backend
-from ligero_tpu.fields import BN254_FR
-from ligero_tpu.ligero import LigeroCircuit, LigeroProof
-from ligero_tpu.sponge import test_sponge
+from ligero_jax.circuit.arithmetic import ArithmeticCircuit
+from ligero_jax.circuit.r1cs import parse_r1cs
+from ligero_jax.engine.backend import Backend
+from ligero_jax.fields import BN254_FR
+from ligero_jax.ligero import LigeroCircuit, LigeroProof
+from ligero_jax.sponge import test_sponge
 
 F = BN254_FR
 R1CS = "/root/reference/circom/multiplication.r1cs"
@@ -95,7 +95,7 @@ def test_verify_batch_empty(setup):
 def test_verify_batch_zk():
     """zk proofs batch too: verdicts equal sequential verify, including
     a tampered one (mask-row reveal flipped)."""
-    from ligero_tpu.synthetic import generate_random_circuit
+    from ligero_jax.synthetic import generate_random_circuit
     c, outputs, vars_ = generate_random_circuit(F, 96, num_vars=4, seed=3)
     lig = LigeroCircuit(c, outputs, lambda_=10, zk=True,
                         backend=Backend(F, use_jax=True))

@@ -6,9 +6,9 @@ import os
 import pytest
 
 from fixtures import REFERENCE_CIRCOM
-from ligero_tpu.circuit.r1cs import load_witness_json, parse_r1cs
-from ligero_tpu.circuit.witness import WitnessCalculator, _fnv1a_64, compute_witness
-from ligero_tpu.fields import BN254_FR
+from ligero_jax.circuit.r1cs import load_witness_json, parse_r1cs
+from ligero_jax.circuit.witness import WitnessCalculator, _fnv1a_64, compute_witness
+from ligero_jax.fields import BN254_FR
 
 F = BN254_FR
 needs_circom = pytest.mark.skipif(not os.path.isdir(REFERENCE_CIRCOM),
@@ -59,8 +59,8 @@ def test_poseidon_witness_matches_golden():
 @needs_circom
 def test_end_to_end_from_wasm_witness():
     """r1cs + wasm + inputs -> circuit + witness -> all outputs are 1."""
-    from ligero_tpu.circuit import ArithmeticCircuit
-    from ligero_tpu.circuit.r1cs import read_constraint_system
+    from ligero_jax.circuit import ArithmeticCircuit
+    from ligero_jax.circuit.r1cs import read_constraint_system
     cs, compute = read_constraint_system(
         os.path.join(REFERENCE_CIRCOM, "cube.r1cs"), F,
         os.path.join(REFERENCE_CIRCOM, "cube.wasm"))

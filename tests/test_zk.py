@@ -13,10 +13,10 @@ import warnings
 
 import pytest
 
-from ligero_tpu.fields import BN254_FR
-from ligero_tpu.ligero import LigeroCircuit, LigeroProof
-from ligero_tpu.sponge import test_sponge
-from ligero_tpu.synthetic import generate_random_circuit
+from ligero_jax.fields import BN254_FR
+from ligero_jax.ligero import LigeroCircuit, LigeroProof
+from ligero_jax.sponge import test_sponge
+from ligero_jax.synthetic import generate_random_circuit
 
 F = BN254_FR
 # small lambda keeps t (and so the 3t blinding) small enough that the

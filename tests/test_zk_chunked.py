@@ -13,13 +13,13 @@ tests/test_streaming.py: residency policy never changes field values).
 import numpy as np
 import pytest
 
-from ligero_tpu.engine.backend import Backend
-from ligero_tpu.engine.devmatrix import RowChunkedMatrix
-from ligero_tpu.fields import BN254_FR
-from ligero_tpu.ligero import LigeroCircuit
-from ligero_tpu.ligero import core as core_mod
-from ligero_tpu.sponge import test_sponge
-from ligero_tpu.synthetic import generate_random_circuit
+from ligero_jax.engine.backend import Backend
+from ligero_jax.engine.devmatrix import RowChunkedMatrix
+from ligero_jax.fields import BN254_FR
+from ligero_jax.ligero import LigeroCircuit
+from ligero_jax.ligero import core as core_mod
+from ligero_jax.sponge import test_sponge
+from ligero_jax.synthetic import generate_random_circuit
 
 F = BN254_FR
 LAMBDA = 10

@@ -24,10 +24,10 @@ import warnings
 import numpy as np
 import pytest
 
-from ligero_tpu.fields import BN254_FR
-from ligero_tpu.ligero import LigeroCircuit
-from ligero_tpu.sponge import test_sponge
-from ligero_tpu.synthetic import generate_random_circuit
+from ligero_jax.fields import BN254_FR
+from ligero_jax.ligero import LigeroCircuit
+from ligero_jax.sponge import test_sponge
+from ligero_jax.synthetic import generate_random_circuit
 
 F = BN254_FR
 LAMBDA = 10  # same toy instance as tests/test_zk.py (k=16, n=128, t=14)

@@ -1,4 +1,4 @@
-//! Golden-vector capture harness for the ligero-tpu bit-exactness contract.
+//! Golden-vector capture harness for the ligero-jax bit-exactness contract.
 //!
 //! Replays the reference test harness (reference src/ligero/tests.rs:144-170
 //! `proof_and_verify`, :364-415 `test_poseidon`) against the PINNED
